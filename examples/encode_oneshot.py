@@ -13,7 +13,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")   # force host; drop for TPU
+jax.config.update("jax_platforms", "cpu")   # force host; drop for the GPU
 
 
 def main(argv):

@@ -1,10 +1,12 @@
-"""libjxl_tpu: a TPU-native JPEG XL codec (JAX/XLA/Pallas).
+"""libjxl_tpu: a JPEG XL codec whose pixel-parallel stages run as JAX/XLA
+device programs (GPU), with the sequential entropy work on the host.
 
 Enables the persistent XLA compilation cache by default: the codec's
 device programs (lossless group pipeline, VarDCT loop, filters) take
-minutes to compile on TPU but are stable across processes, and every
-CLI/bench/test invocation is a fresh process. Opt out by setting
-JAX_COMPILATION_CACHE_DIR explicitly (e.g. to an empty string).
+tens of seconds to compile but are stable across processes, and every
+CLI/bench/test invocation is a fresh process. JAX_COMPILATION_CACHE_DIR
+wins when set (an empty string opts out); otherwise the cache is the
+fixed <checkout>/.jax_cache, so its keys stay stable between runs.
 """
 
 import os as _os

@@ -891,7 +891,7 @@ def _blend_frame(canvas, img, fh, x0, y0, meta, refs=None):
 
 
 def _device_decode_inputs(data: bytes):
-    """Host half of the TPU decode: parse + native entropy decode one
+    """Host half of the device decode: parse + native entropy decode one
     stream into a FrameRecon pytree (models/vardct_decode.py), plus the
     (shape, filters) batch key. Returns None when the stream needs the
     general path (non-DCT8 strategies, features, extra channels, ...)."""
@@ -1056,26 +1056,41 @@ def _group_rect(fd, g: int):
         min(gdb, fd.ysize_blocks - by0)
 
 
+def _device_eligible(data: bytes) -> bool:
+    """Whether decode_many reconstructs this stream on the device: the
+    device_filters rule applied to the frame size in its header."""
+    from libjxl_tpu.api.container import extract_codestream
+    from libjxl_tpu.config import device_filters_enabled
+    try:
+        meta = read_codec_metadata(BitReader(extract_codestream(data)))
+    except FormatError:
+        return False             # the host path reports the error
+    return device_filters_enabled(meta.xsize * meta.ysize)
+
+
 def decode_many(streams, workers: int = 3, device_batch: bool = True
                 ) -> list:
     """Serving-mode decode of a batch of independent codestreams.
 
     Host threads run the serial half (parse + native rANS) in parallel;
-    frames of the same shape are then reconstructed by ONE batched TPU
-    program (dequant+CfL+IDCT+EPF+color, models/vardct_decode.py) and
-    only the final uint8 images cross the link. Streams the device fast
-    path cannot take (or all, with ``device_batch=False``) decode on
-    the general host path (the reference decodes one image on many
-    threads, `thread_parallel_runner.h`; a TPU serving host instead
-    keeps the chip fed with a batch of frames)."""
+    frames of the same shape are then reconstructed by ONE batched
+    device program (dequant+CfL+IDCT+EPF+color, models/vardct_decode.py)
+    and only the final uint8 images cross to the host. Streams the
+    device fast path cannot take, streams that ``device_filters_enabled``
+    keeps on the host, and all streams with ``device_batch=False``
+    decode on the general host path (the reference decodes one image on
+    many threads, `thread_parallel_runner.h`; a serving host instead
+    keeps the device fed with a batch of frames)."""
     from concurrent.futures import ThreadPoolExecutor
 
     if not streams:
         return []
     from libjxl_tpu.config import config
-    if not (device_batch and config.device_filters and len(streams) > 1):
+    eligible = [device_batch and _device_eligible(s) for s in streams]
+    if not any(eligible):
         with ThreadPoolExecutor(max(1, workers)) as ex:
             return list(ex.map(decode, streams))
+    selected = [s for s, ok in zip(streams, eligible) if ok]
     prepped = None
     if config.decode_host_processes:
         # GIL-free host stage: whole streams decode on worker
@@ -1083,14 +1098,16 @@ def decode_many(streams, workers: int = 3, device_batch: bool = True
         # (broken worker, unpicklable env) falls back to threads
         try:
             from libjxl_tpu.parallel.host_pool import map_decode_inputs
-            prepped = map_decode_inputs(streams,
+            prepped = map_decode_inputs(selected,
                                         config.decode_host_processes)
         except Exception:
             prepped = None
     if prepped is None:
         with ThreadPoolExecutor(max(1, workers)) as ex:
             prepped = list(ex.map(
-                lambda s: _try(_device_decode_inputs, s), streams))
+                lambda s: _try(_device_decode_inputs, s), selected))
+    done = iter(prepped)
+    prepped = [next(done) if ok else None for ok in eligible]
     results: list = [None] * len(streams)
     by_key: dict = {}
     for i, p in enumerate(prepped):
@@ -1105,7 +1122,7 @@ def decode_many(streams, workers: int = 3, device_batch: bool = True
         is_var = len(key) > 7 and key[7] == "var"
         lf = prepped[idxs[0]][2]
         # dispatch every chunk first (async device queue), then fetch:
-        # chunk i+1 executes while chunk i's image crosses the link
+        # chunk i+1 executes while chunk i's image is copied out
         pending = []
         for c0 in range(0, len(idxs), CHUNK):
             chunk = idxs[c0:c0 + CHUNK]

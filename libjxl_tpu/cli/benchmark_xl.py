@@ -9,7 +9,7 @@ Codec specs use the reference's syntax::
 
     jxl:d1.0:e5     VarDCT at butteraugli distance 1.0, effort 5
     jxl:d0:e3       lossless modular, effort 3
-    jxl:d0:e3:device   device (TPU) encode path
+    jxl:d0:e3:device   device (GPU) encode path
 
 Usage: python -m libjxl_tpu.cli.benchmark_xl --codec jxl:d0:e2,jxl:d1:e3
            img1.png img2.png [--decode_reps N] [--encode_reps N]

@@ -15,7 +15,7 @@ def main(argv=None) -> int:
     from libjxl_tpu.cli import apply_platform_env
     apply_platform_env()
     p = argparse.ArgumentParser(prog="cjxl_tpu",
-                                description="TPU-native JPEG XL encoder")
+                                description="JPEG XL encoder (JAX device path)")
     p.add_argument("input")
     p.add_argument("output")
     p.add_argument("-d", "--distance", type=float, default=None,
@@ -113,7 +113,7 @@ def main(argv=None) -> int:
                    help="host worker threads for per-group work "
                         "(0 = auto)")
     p.add_argument("--device", action="store_true",
-                   help="run pixel compute on the TPU (JAX) path")
+                   help="run pixel compute on the JAX device (GPU) path")
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--lossless_jpeg", type=int, default=1,
                    help="1 (default): recompress .jpg input losslessly "

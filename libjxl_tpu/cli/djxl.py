@@ -11,7 +11,7 @@ def main(argv=None) -> int:
     from libjxl_tpu.cli import apply_platform_env
     apply_platform_env()
     p = argparse.ArgumentParser(prog="djxl_tpu",
-                                description="TPU-native JPEG XL decoder")
+                                description="JPEG XL decoder (JAX device path)")
     p.add_argument("input")
     p.add_argument("output")
     p.add_argument("--num_reps", type=int, default=1)

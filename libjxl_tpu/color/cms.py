@@ -2,7 +2,7 @@
 primaries / white point math with chromatic adaptation, Rec.2408 tone
 mapping, HLG OOTF and gamut mapping.
 
-TPU-native re-design of the reference CMS (``lib/jxl/cms/jxl_cms.cc``,
+Device-friendly re-design of the reference CMS (``lib/jxl/cms/jxl_cms.cc``,
 ``cms/transfer_functions.h``, ``cms/tone_mapping.h``): everything is a
 vectorized array op over (3, H, W) planes (numpy here, identical code
 path under jnp for on-device rendering) instead of lcms2/skcms per-pixel

@@ -1,15 +1,80 @@
 """Image file I/O for the tools layer (reference ``lib/extras/dec/decode.cc``
 and ``lib/extras/enc/*``): auto-detected decode of PNG/PNM/PGM/PPM/JPEG
-etc., and PNG/PNM/NPY encode. PNM is implemented natively; other formats
-go through PIL when present."""
+etc., and PNG/PNM/NPY encode. PNM and plain PNG (non-interlaced 8/16-bit
+gray, RGB, RGBA) are implemented natively; other formats go through PIL
+when present."""
 
 from __future__ import annotations
 
 import io
 import os
 import re
+import struct
+import zlib
 
 import numpy as np
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}     # gray, RGB, RGBA colour types
+
+
+def _png_unfilter(ftype: np.ndarray, filt: np.ndarray) -> np.ndarray:
+    """Undo PNG row filters (None/Sub/Up/Average/Paeth) on (h, w, bpp)
+    filtered bytes. Pixel (r, x) needs only its left, upper and
+    upper-left neighbours, so every anti-diagonal r + x = t is
+    reconstructed in one vectorised step (h + w - 1 steps in all)."""
+    h, w, bpp = filt.shape
+    rec = np.zeros((h + 1, w + 1, bpp), np.int32)   # zero top/left border
+    rows = np.arange(h)
+    zero = np.zeros((1, bpp), np.int32)
+    for t in range(h + w - 1):
+        r = rows[max(0, t - w + 1):min(h, t + 1)]
+        x = t - r
+        a, b, c = rec[r + 1, x], rec[r, x + 1], rec[r, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        pred = np.choose(ftype[r][:, None],
+                         [zero, a, b, (a + b) >> 1, paeth])
+        rec[r + 1, x + 1] = (filt[r, x] + pred) & 255
+    return rec[1:, 1:].astype(np.uint8)
+
+
+def _read_png(data: bytes) -> np.ndarray | None:
+    """Non-interlaced 8/16-bit gray, RGB or RGBA PNG -> (h, w, c) uint8 or
+    uint16. Returns None for the other PNG kinds (palette, gray+alpha,
+    sub-byte depths, Adam7), which ``load_image`` hands to PIL."""
+    pos, ihdr, idat = 8, None, []
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    if ihdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if interlace or depth not in (8, 16) or ctype not in _PNG_CHANNELS:
+        return None
+    nch = _PNG_CHANNELS[ctype]
+    bpp = nch * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (w * bpp + 1):
+        raise ValueError("PNG image data has the wrong size")
+    raw = raw.reshape(h, w * bpp + 1)
+    ftype = raw[:, 0].astype(np.intp)
+    if ftype.max(initial=0) > 4:
+        raise ValueError("unknown PNG filter type")
+    px = _png_unfilter(ftype, raw[:, 1:].reshape(h, w, bpp).astype(np.int32))
+    if depth == 16:
+        return px.reshape(h, w * nch * 2).view(">u2").astype(
+            np.uint16).reshape(h, w, nch)
+    return px.reshape(h, w, nch)
 
 
 def _read_pnm(data: bytes) -> np.ndarray:
@@ -181,6 +246,10 @@ def load_image(path: str) -> np.ndarray:
     if data[:4] == b"\x76\x2f\x31\x01":
         from libjxl_tpu.extras.exr import read_exr
         return read_exr(data)              # float32 HDR
+    if data[:8] == _PNG_SIG:
+        px = _read_png(data)
+        if px is not None:
+            return px
     try:
         from PIL import Image
         img = Image.open(io.BytesIO(data))

@@ -1,6 +1,6 @@
 """Butteraugli perceptual distance, pure JAX.
 
-TPU-first re-implementation of the reference psychovisual model
+JAX (device) re-implementation of the reference psychovisual model
 (``lib/jxl/butteraugli/butteraugli.cc``): every stage is expressed as
 vectorized array ops (separable FIR blurs, shifted-window line filters,
 elementwise opsin/masking math) so XLA fuses the whole diffmap into one
@@ -83,13 +83,15 @@ def _blur(img: jnp.ndarray, sigma: float) -> jnp.ndarray:
         flat = moved.reshape(-1, 1, shape[-1])
         out = jax.lax.conv_general_dilated(
             flat, k[None, None, :], window_strides=(1,),
-            padding=[(len(kernel) // 2, len(kernel) // 2)])
+            padding=[(len(kernel) // 2, len(kernel) // 2)],
+            precision=jax.lax.Precision.HIGHEST)
         n = shape[-1]
         # in-bounds kernel mass per output position
         ones = jnp.ones((1, 1, n), dtype=img.dtype)
         weight = jax.lax.conv_general_dilated(
             ones, k[None, None, :], window_strides=(1,),
-            padding=[(len(kernel) // 2, len(kernel) // 2)])
+            padding=[(len(kernel) // 2, len(kernel) // 2)],
+            precision=jax.lax.Precision.HIGHEST)
         out = out / weight
         return jnp.moveaxis(out.reshape(shape), -1, axis)
 

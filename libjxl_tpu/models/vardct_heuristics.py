@@ -12,7 +12,7 @@ Two fused XLA programs:
    semantics), and keeps the sharpened image for the transform stage.
 
 2. ``acs_grids_device``: the AC-strategy cost grids — for every
-   candidate transform class, a batched whole-frame DCT (MXU matmuls
+   candidate transform class, a batched whole-frame DCT (matmuls
    over all aligned positions at once, the device analog of
    enc_ac_strategy.cc:618's per-tile loop), dead-zone quantization,
    rate estimate and weighted distortion, reduced to one cost per
@@ -79,8 +79,8 @@ def _grids_jit(xyb, raw_quant, tables, strategies: tuple,
         out.append(strategy_rate_loss(
             xyb, raw_quant, tables[i], scale, int(s), mask1x1,
             distance, xp=jnp))
-    # ONE flat payload: 2*len(strategies) separate fetches each pay the
-    # ~25 ms relay latency; the grids are tiny (< 200 KB total)
+    # ONE flat payload instead of 2*len(strategies) separate fetches;
+    # the grids are tiny (< 200 KB total)
     return jnp.concatenate([g.reshape(-1)
                             for pair in out for g in pair])
 

@@ -5,7 +5,7 @@ One fused XLA program computes, from the on-device padded XYB plane:
   * the whole-frame DCT8 Y quantization + roundtrip and the per-64x64
     chroma-from-luma least squares (the same math as
     ``models/vardct_pipeline._frame_body``; enc_chroma_from_luma.cc),
-  * per-ACS-class forward DCTs (MXU einsums over aligned whole-frame
+  * per-ACS-class forward DCTs (einsums over aligned whole-frame
     grids, the layout of ``models/vardct_heuristics.acs_grids_device``),
   * anchor gathers + dead-zone quantization of all three channels with
     the CfL factors unapplied (enc_group.cc:329-360 semantics,
@@ -207,7 +207,7 @@ def transform_quantize_device(xyb_dev, acs: np.ndarray,
     # FIXED class list: `classes`/caps are static jit args, and the
     # butteraugli-loop program shares this class layout — per-image
     # class sets would recompile both programs per image (the
-    # models/vardct_loop stability fix, measured ~30 s/compile)
+    # models/vardct_loop stability fix)
     present = {int(s) for s in np.unique(acs[anchors])}
     fixed = [0, 1, 2, 3, 4, 5, 6, 7, 10, 11, 12, 13, 14, 15, 16, 17,
              18, 19, 20]
@@ -255,8 +255,7 @@ def transform_quantize_device(xyb_dev, acs: np.ndarray,
         classes=tuple(classes), caps=tuple(caps), yb=yb, xb=xb,
         x_qm_mul=float(x_qm_mul))
 
-    # TWO consolidated fetches (q + dc): per-class pulls cost a relay
-    # round-trip each (19 classes x 2 calls/encode measured at ~0.8 s)
+    # TWO consolidated fetches (q + dc) instead of one per class
     ytox = np.asarray(ytox_d)
     ytob = np.asarray(ytob_d)
     q_all = np.asarray(q_flat_d)

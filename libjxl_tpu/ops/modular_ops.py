@@ -2,7 +2,7 @@
 
 All ops are shape-static, integer-exact (int32) and group-parallel: arrays
 are laid out as ``(groups, channels, gd, gd)`` so the group axis can be
-sharded over a TPU mesh (the reference's parallel axis, SURVEY.md §2.2).
+sharded over a device mesh (the reference's parallel axis, SURVEY.md §2.2).
 
 The sequential rANS bit emission stays on the host; the device produces
 residual tokens and per-context histograms (the FLOP- and bandwidth-heavy
@@ -117,9 +117,10 @@ def token_histogram(tokens: jnp.ndarray, mask: jnp.ndarray,
                     chunk: int = 1 << 16) -> jnp.ndarray:
     """Masked histogram of token values.
 
-    TPU-friendly compare-and-reduce over fixed-size chunks (scatter-add
-    serializes badly on TPU; one-hot blows memory). Each chunk builds a
-    (chunk, alphabet) boolean compare and reduces it — pure VPU work."""
+    Compare-and-reduce over fixed-size chunks: each chunk builds a
+    (chunk, alphabet) compare and reduces it, so no two lanes update one
+    bin (a scatter-add puts most of the skewed token mass on a few bins'
+    atomics, and a full one-hot does not fit in memory)."""
     flat = jnp.clip(tokens, 0, alphabet_size - 1).reshape(-1)
     weights = mask.reshape(-1).astype(jnp.int32)
     n = flat.shape[0]

@@ -21,10 +21,11 @@ def make_mesh(n_devices: int | None = None, axis: str = "groups") -> Mesh:
     return Mesh(np.array(devices), (axis,))
 
 
-def shard_groups(mesh: Mesh, arr: jnp.ndarray, axis: str = "groups"):
-    """Place a (G, ...) array with the leading axis sharded over the mesh."""
-    spec = P(axis, *([None] * (arr.ndim - 1)))
-    return jax.device_put(arr, NamedSharding(mesh, spec))
+def shard_groups(mesh: Mesh, arr: jnp.ndarray, dim: int = 0):
+    """Place ``arr`` with axis ``dim`` split over the mesh's one axis."""
+    spec = [None] * arr.ndim
+    spec[dim] = mesh.axis_names[0]
+    return jax.device_put(arr, NamedSharding(mesh, P(*spec)))
 
 
 def pad_groups_to_multiple(arr: np.ndarray, n: int):

@@ -4,7 +4,7 @@ across JAX processes.
 The reference's streaming encoder already proves the schedule: DC-group
 bands are encoded independently with per-band histograms so no global
 synchronization is needed (enc_frame.cc:2045-2160; per-DC-group
-histogram count at :2074). On a TPU pod slice the same schedule maps to
+histogram count at :2074). On a multi-host cluster the same schedule maps to
 hosts: every process encodes only the DC-group row bands it owns (its
 local chips do the pixel math), and the per-section byte blobs — the
 only inter-host data — are gathered over DCN with one allgather. The

@@ -7,7 +7,7 @@ supplied runner callback; here the same seam is a tiny Runner protocol:
 
     runner.run(n_tasks, fn[, init])  # fn(task_index, thread_index)
 
-Device (TPU) parallelism is XLA's job — these runners cover HOST-side
+Device parallelism is XLA's job — these runners cover HOST-side
 section work: group parse/assembly, byte splicing, per-image batch fan-
 out. ``set_default_runner`` swaps the implementation process-wide, the
 way the C API threads a JxlParallelRunner through encoder/decoder

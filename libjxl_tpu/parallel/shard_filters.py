@@ -137,8 +137,9 @@ def restore_sharded(xyb: np.ndarray, lf, raw_quant: np.ndarray,
     # is 8-periodic in rows and every shard starts at a multiple of 8
     # (HALO included), so per-shard construction equals the global one.
     fn = jax.jit(fn)
-    out = fn(jnp.asarray(xyb, jnp.float32),
-             jnp.asarray(raw_quant),
-             jnp.asarray(epf_sharpness),
+    from libjxl_tpu.parallel.mesh import shard_groups
+    out = fn(shard_groups(mesh, np.asarray(xyb, np.float32), dim=1),
+             shard_groups(mesh, np.asarray(raw_quant, np.int32)),
+             shard_groups(mesh, np.asarray(epf_sharpness, np.int32)),
              jnp.asarray([quant_scale], jnp.float32), lfp)
     return np.asarray(out)

@@ -38,7 +38,7 @@ class CompressParams:
     intensity_target: float = 0.0
     # --- misc --------------------------------------------------------------
     orientation: int = 1
-    use_device: bool = False       # TPU compute path
+    use_device: bool = False       # JAX device compute path
     group_size_shift: int = 1
 
     def is_lossless(self) -> bool:

@@ -3,7 +3,7 @@
 ``stage_epf.cc``, ``lib/jxl/epf.cc``).
 
 Every function takes an ``xp`` module parameter (numpy by default,
-``jax.numpy`` for the TPU render path — see ``render/filters_jax.py``):
+``jax.numpy`` for the device render path — see ``render/filters_jax.py``):
 the bodies are functional (no in-place mutation), so the same code is
 the host filter and the device kernel. The group-border halo is handled
 by mirror padding over the whole frame here; the sharded multi-chip

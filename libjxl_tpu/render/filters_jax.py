@@ -1,4 +1,4 @@
-"""TPU/XLA restoration-filter pipeline: Gaborish + EPF as one jitted
+"""Device restoration-filter pipeline: Gaborish + EPF as one jitted XLA
 program (the device render path; same math as ``render/filters.py``
 via its ``xp`` parameter — reference ``stage_gaborish.cc``,
 ``stage_epf.cc``).
@@ -71,37 +71,14 @@ def _restore(xyb, raw_quant, epf_sharpness, quant_scale, lfp: LfParams,
 
 def restore_device(xyb: np.ndarray, lf, raw_quant, epf_sharpness,
                    quant_scale: float, fetch: bool = True):
-    """Run gaborish+EPF as one device program.
+    """Run gaborish+EPF as one fused XLA device program.
 
-    With ``config.pallas_filters`` the EPF/gaborish stencils run as
-    Pallas tile kernels (one HBM read+write per pass instead of XLA's
-    per-shift temporaries, models/pallas_filters.py); otherwise the
-    fused XLA program. With ``fetch`` (default) the result comes back
-    as numpy; with ``fetch=False`` it STAYS on device so a downstream
-    device stage (color conversion / quantization) can consume it
-    without a host round-trip — the d2h transfer is the decode
-    bottleneck."""
+    With ``fetch`` (default) the result comes back as numpy; with
+    ``fetch=False`` it STAYS on device so a downstream device stage
+    (color conversion / quantization) can consume it without a host
+    round-trip."""
     import jax.numpy as jnp
 
-    from libjxl_tpu.config import config as _cfg
-    if _cfg.pallas_filters:
-        from libjxl_tpu.models import pallas_filters as PF
-        if PF.available():
-            import libjxl_tpu.render.filters as F
-            inv_sigma = F.compute_sigma(lf, None, None,
-                                        np.asarray(raw_quant),
-                                        np.asarray(epf_sharpness),
-                                        quant_scale)
-            h, w = np.shape(xyb)[1], np.shape(xyb)[2]
-            sig_pix = F._upsample8(np.asarray(inv_sigma, np.float32),
-                                   h, w)
-            out = PF.restore_pallas(
-                jnp.asarray(xyb, jnp.float32), jnp.asarray(sig_pix),
-                PF.static_lf_params(lf), bool(lf.gab),
-                int(lf.epf_iters))
-            if not fetch:
-                return out
-            return np.asarray(out).astype(xyb.dtype)
     out = _restore(jnp.asarray(xyb, jnp.float32),
                    jnp.asarray(raw_quant), jnp.asarray(epf_sharpness),
                    jnp.float32(quant_scale), lf_params(lf),
@@ -116,7 +93,7 @@ def _output_int(xyb, intensity, maxval: int):
     """XYB (3, H, W) -> (H, W, 3) integer sRGB on device: the inverse
     opsin transform (dec_xyb-inl.h:39-86), sRGB encode and quantization
     fused into the same device program as the filters so only the final
-    uint8/uint16 image crosses the link."""
+    uint8/uint16 image is copied to the host."""
     import jax.numpy as jnp
 
     from libjxl_tpu.color.xyb import INVERSE_OPSIN, NEG_BIAS_CBRT, \
@@ -125,8 +102,8 @@ def _output_int(xyb, intensity, maxval: int):
     gamma = jnp.stack([xyb[1] + xyb[0], xyb[1] - xyb[0], xyb[2]])
     gamma = gamma - NEG_BIAS_CBRT
     mixed = gamma * gamma * gamma - OPSIN_BIAS
-    # 3x3 color matrix as explicit VPU multiply-adds: einsum would hit
-    # the MXU at bfloat16 precision and visibly shift dark pixels
+    # 3x3 color matrix as explicit float32 multiply-adds: a matmul may
+    # run at reduced (bf16/TF32) precision and visibly shift dark pixels
     inv = INVERSE_OPSIN * (255.0 / intensity)
     linear = jnp.stack([
         inv[c][0] * mixed[0] + inv[c][1] * mixed[1] + inv[c][2] * mixed[2]

@@ -8,7 +8,7 @@ the list from the frame header and runs it. This is the same seam: a
 ``build_render_pipeline`` assembles the frame's stages in the
 dec_cache.cc:142-217 order (restoration filters -> patches -> splines
 -> upsampling -> noise), and callers can inspect, wrap, or extend the
-list (the TPU fast path swaps the two filter stages for the fused
+list (the device fast path swaps the two filter stages for the fused
 device/Pallas stage).
 
 ctx: dict with dec (frame decoder state), fh, meta, fd, lf.
@@ -65,8 +65,8 @@ class EpfStage(Stage):
 
 
 class DeviceRestoreStage(Stage):
-    """Fused gaborish+EPF on the device (XLA or Pallas kernels);
-    replaces GaborishStage+EpfStage on the TPU path. ``keep`` leaves
+    """Fused gaborish+EPF on the device (one XLA program);
+    replaces GaborishStage+EpfStage on the device path. ``keep`` leaves
     the result on device for a downstream fused output stage."""
 
     name = "device-restore"

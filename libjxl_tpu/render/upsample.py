@@ -6,8 +6,8 @@ low-res neighborhood, clamped to that neighborhood's [min, max] (the
 "no ringing" constraint). Kernels come from a triangular weight
 parameterization expanded with 4-fold symmetry
 (stage_upsampling.cc:63-86). Fully vectorized: one (N*N, 25) kernel
-matrix applied to an im2col of the padded plane — on TPU this is a
-single matmul per shift."""
+matrix applied to an im2col of the padded plane — a single matmul per
+shift."""
 
 from __future__ import annotations
 

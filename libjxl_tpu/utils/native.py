@@ -44,11 +44,14 @@ def _build() -> str | None:
     so_path = os.path.join(_BUILD_DIR, f"jxl_host_{key}.so")
     if os.path.exists(so_path):
         return so_path
+    # a private temp name per process: concurrent first builds (pool
+    # workers on a cold checkout) must never publish a half-written .so
+    tmp = f"{so_path}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-pthread", _SRC, "-o", so_path + ".tmp"]
+           "-pthread", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(so_path + ".tmp", so_path)
+        os.replace(tmp, so_path)
         return so_path
     except Exception as e:  # noqa: BLE001 - build failure => python fallback
         sys.stderr.write(f"[libjxl_tpu] native build failed: {e}\n")

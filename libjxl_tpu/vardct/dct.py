@@ -1,4 +1,4 @@
-"""JPEG XL DCT semantics (numpy reference + matmul form for TPU).
+"""JPEG XL DCT semantics (numpy reference + matmul form for the device).
 
 The format's DCT is the orthogonal DCT-II family with these scalings
 (reference ``lib/jxl/dct_for_test.h`` which the fast path must match):

@@ -134,14 +134,15 @@ def _score_jit():
             - NEG_BIAS_CBRT
         mixed = g * g * g - OPSIN_BIAS
         lin = jnp.einsum("ij,jhw->ihw",
-                         jnp.asarray(INVERSE_OPSIN, jnp.float32), mixed)
+                         jnp.asarray(INVERSE_OPSIN, jnp.float32), mixed,
+                         precision=jax.lax.Precision.HIGHEST)
         lin = jnp.clip(lin, 0.0, 1.0)
         dm = butteraugli_diffmap(orig_lin, lin, hf_asymmetry=0.8)
         yb8, xb8 = (h + 7) // 8, (w + 7) // 8
         pad = jnp.zeros((yb8 * 8, xb8 * 8), jnp.float32
                         ).at[:h, :w].set(dm.astype(jnp.float32))
         # f32 pow-16: dm < ~0.004 underflows to 0, a vanishing
-        # contribution to the 16-norm (TPUs have no f64)
+        # contribution to the 16-norm (the device path stays in f32)
         v16 = pad ** 16
         return v16.reshape(yb8, 8, xb8, 8).sum(axis=(1, 3))
 

@@ -508,9 +508,8 @@ class VarDCTFrameDecoder:
             if threading.current_thread() is not threading.main_thread():
                 # called from a stream-batch worker (decode_many /
                 # serving): the outer pool already owns the cores —
-                # nested std::thread fan-out thrashes (measured: 3
-                # workers x 4 inner threads dropped the host entropy
-                # stage from ~200 to 73 MP/s on a 4-core host)
+                # nested std::thread fan-out thrashes (workers x inner
+                # threads oversubscribe the cores)
                 n_threads = 1
             else:
                 n_threads = min(n, os.cpu_count() or 1)
@@ -635,7 +634,7 @@ class VarDCTFrameDecoder:
             return True
         if getattr(self, "_collect_coeffs", None) is not None:
             # device-reconstruction mode: stash raw quantized coefficients
-            # (models/vardct_decode.py runs dequant+CfL+IDCT on TPU)
+            # (models/vardct_decode.py runs dequant+CfL+IDCT on device)
             self._collect_coeffs[:, by0:by0 + h_, bx0:bx0 + w_, :] = \
                 coeffs.reshape(3, h_, w_, 64)
             return True

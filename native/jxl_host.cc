@@ -1,6 +1,6 @@
-// Host-side native kernels for the TPU-JXL runtime.
+// Host-side native kernels for the libjxl_tpu codec runtime.
 //
-// The TPU (XLA/Pallas) handles everything pixel-parallel; these C kernels
+// The device (JAX/XLA on the GPU) handles everything pixel-parallel; these C kernels
 // cover the inherently sequential per-stream work the host must do:
 //   * rANS stream emission (reverse pass + LSB-first bit packing)
 //     (reference semantics: lib/jxl/enc_ans.h:49-77, enc_ans.cc:1261-1320)
@@ -426,7 +426,7 @@ EXPORT int64_t jxlt_splice_section(const uint8_t* prefix_bytes,
 // The per-coefficient rANS read chain is inherently sequential per
 // section; this native pass turns a whole AC-group section into dense
 // quantized coefficients so the (embarrassingly parallel) dequant + CfL
-// + IDCT reconstruction can run batched on TPU/numpy. Context model
+// + IDCT reconstruction can run batched on the device or in numpy. Context model
 // constants from lib/jxl/ac_context.h.
 // ---------------------------------------------------------------------------
 
@@ -817,8 +817,8 @@ EXPORT int64_t jxlt_acs_paint(const int32_t* acs_vals,
 
 // Prefix-encode one group's packed residuals straight into a complete
 // byte-aligned section (header bits + tokens + pad). Used when the
-// host<->device link makes raw residual download (1 B/px) cheaper than
-// the device-packed stream (content above ~8 bpp): the TPU computes
+// raw residual download (1 B/px) is smaller than the device-packed
+// stream (content above ~8 bpp): the device computes
 // residuals + histogram, the host entropy-codes. Same canonical code /
 // bitstream as the device pack path. Hybrid-uint cfg (4,2,0).
 EXPORT int64_t jxlt_prefix_encode_group(
@@ -888,8 +888,8 @@ EXPORT int64_t jxlt_prefix_encode_group(
 }
 
 // Splice word-aligned packed chunks into one continuous LSB-first
-// bitstream. The TPU packs each T-token chunk into its own word-aligned
-// buffer (libjxl_tpu/models/lossless.py chunk_pack_device); the host
+// bitstream. The device packs each T-token chunk into its own
+// word-aligned run (libjxl_tpu/models/lossless.py chunk_pack_device); the host
 // concatenates them bit-exactly at memcpy-class speed. ``words`` holds the
 // compacted stream (chunk i occupies words[word_start[i] ..
 // word_start[i] + ceil(bits[i]/32))); returns total bits written or -1

@@ -2,8 +2,8 @@
 must emit byte-identical streams, and the halo-exchange filter pipeline
 must match the whole-image filters (VERDICT r1 item 3).
 
-The conftest forces an 8-device virtual CPU backend; real TPU meshes
-use the same code paths (jax.sharding / shard_map are backend-neutral).
+The conftest forces an 8-device virtual CPU backend; GPU meshes use
+the same code paths (jax.sharding / shard_map are backend-neutral).
 """
 
 import numpy as np

@@ -241,7 +241,7 @@ def test_device_lossy_matches_host(rng):
 
 
 def test_decode_many_device_batch_matches_general_path():
-    """The batched TPU reconstruction (models/vardct_decode.py: sparse
+    """The batched device reconstruction (models/vardct_decode.py: sparse
     coefficient upload, dequant+CfL+IDCT+EPF+color in one program)
     must agree with the general host path within float tolerance and
     with libjxl within +-1."""
